@@ -2,10 +2,11 @@
 a shared corpus, each process owning one host shard; the in-driver
 all-gather hands every process the identical complete match list.
 
-The TPU-pod analog of the reference's thread-pool scaling example
+The multi-host analog of the reference's thread-pool scaling example
 (reference examples/replace_bench.rs:88-127 measures scaling across thread
 counts; here the workers are *processes* coordinated by jax.distributed —
-the same launch shape a real multi-host pod uses, exercised on CPU).
+the same launch shape a real multi-host cluster uses, exercised on CPU with
+the scan kernels in Pallas interpret mode).
 
 Run:  python examples/multihost_demo.py            # 2 processes
       N_PROCS=4 python examples/multihost_demo.py  # 4 processes
@@ -24,10 +25,10 @@ sys.path.insert(0, REPO)
 _WORKER = r"""
 import os, sys, json, time
 os.environ["JAX_PLATFORMS"] = "cpu"
+os.environ["FAC_INTERPRET"] = "1"
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
 sys.path.insert(0, sys.argv[4])
 import jax
-jax.config.update("jax_platforms", "cpu")
 
 from fuzzy_aho_corasick_tpu import FuzzyAhoCorasickBuilder, FuzzyLimits
 from fuzzy_aho_corasick_tpu.parallel import multihost

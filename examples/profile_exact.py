@@ -5,13 +5,9 @@ import sys
 import time
 
 os.environ["FAC_TIME"] = "1"
-os.environ.setdefault(
-    "FAC_JAX_CACHE",
-    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"),
-)
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from profile_fuzzy import build_corpus  # noqa: E402
+from bench import build_corpus  # noqa: E402
 
 from fuzzy_aho_corasick_tpu import FuzzyAhoCorasickBuilder  # noqa: E402
 

@@ -1,14 +1,8 @@
 """Stage timing of the 1k-pattern chunked lane (many1k bench config)."""
 import os, sys, time
-os.environ.setdefault(
-    "FAC_JAX_CACHE",
-    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"),
-)
 os.environ["FAC_TIME"] = "1"
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
-from fuzzy_aho_corasick_tpu.utils import hostmem
-hostmem.enable_compile_cache()
 from bench import build_corpus
 from fuzzy_aho_corasick_tpu import FuzzyAhoCorasickBuilder, FuzzyLimits
 

@@ -1,4 +1,4 @@
-"""fuzzy_aho_corasick_tpu — TPU-native fuzzy multi-pattern matching.
+"""fuzzy_aho_corasick_tpu — fuzzy multi-pattern matching on the GPU.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of the
 ``fuzzy-aho-corasick`` Rust crate (reference mounted at /root/reference;
@@ -9,7 +9,7 @@ multi-character mappings, a bit-parallel prefilter, segmentation/replace
 helpers, and streaming over arbitrarily large inputs.
 
 The automaton compiles to dense device tables; searches run as anchored
-per-start-position scans vectorized across TPU lanes, shard data-parallel
+per-start-position scans vectorized across GPU threads, shard data-parallel
 over a device mesh with halo overlap, and fall back to an exact host oracle
 for configurations the kernels don't cover. Similarity for a length-``N``
 pattern is ``(N - penalties) / N * weight`` (f32), identical to the
@@ -31,11 +31,9 @@ Example::
 from .utils.hostmem import (
     enable_compile_cache as _enable_compile_cache,
     tune_host_allocator as _tune_host_allocator,
-    tune_network as _tune_network,
 )
 
 _tune_host_allocator()
-_tune_network()
 _enable_compile_cache()
 
 from .automaton import FuzzyAhoCorasick

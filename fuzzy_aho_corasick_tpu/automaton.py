@@ -3,8 +3,8 @@
 
 The engine owns the host automaton (built by
 :class:`fuzzy_aho_corasick_tpu.builder.FuzzyAhoCorasickBuilder`) plus lazily
-compiled dense device arrays for the TPU kernels. ``search_raw`` dispatches to
-the TPU path when the configuration is kernel-eligible, and to the host oracle
+compiled dense device arrays for the device kernels. ``search_raw`` dispatches
+to the device path when the configuration is kernel-eligible, and to the host oracle
 otherwise — both produce identical match sets (differential-tested).
 """
 
@@ -75,8 +75,10 @@ class FuzzyAhoCorasick:
         # Lazily-built dense device tables (ops/dense.py) and device engine.
         self._dense = None
         self._device = None
-        # Policy knob: 'auto' uses the TPU path when eligible, 'oracle'/'device'
-        # force one path (used by differential tests).
+        # Policy knob: 'auto' uses the device path when eligible and a GPU is
+        # present, 'oracle'/'device' force one path (used by differential
+        # tests; 'device' raises when there is no GPU, see
+        # ops/packed_bitap.interpret_mode).
         self.backend = "auto"
         # Observability: per-search counters set by whichever path ran
         # (SURVEY §5 tracing/metrics; see oracle.search_raw and ops/*).
@@ -111,13 +113,13 @@ class FuzzyAhoCorasick:
     def search_raw(self, haystack: str, threshold: float) -> List[FuzzyMatch]:
         """Raw best-per-span matches (reference src/search.rs:187).
 
-        Dispatches between the TPU kernel path and the host oracle; results
-        are identical (the device path falls back per-window on beam
+        Dispatches between the device kernel path and the host oracle;
+        results are identical (the device path falls back per-window on beam
         overflow).
         """
         if self.backend == "oracle":
             return oracle.search_raw(self, haystack, threshold)
-        if self.backend == "auto" and len(haystack) < self.AUTO_DEVICE_MIN:
+        if self.backend == "auto" and not self._device_eligible(haystack):
             return self._host_search(haystack, threshold)
         dev = self._device_engine()
         if dev.supports(haystack):
@@ -127,6 +129,15 @@ class FuzzyAhoCorasick:
         if len(haystack) >= (1 << 20):
             self._warn_host_cliff(len(haystack))
         return self._host_search(haystack, threshold)
+
+    def _device_eligible(self, haystack: str) -> bool:
+        """Whether 'auto' may try the device lanes: the haystack is large
+        enough to pay for a dispatch and the device lanes can run here."""
+        if len(haystack) < self.AUTO_DEVICE_MIN:
+            return False
+        from .ops.packed_bitap import device_available
+
+        return device_available()
 
     def _warn_host_cliff(self, nbytes: int) -> None:
         """One-time warning when a large haystack silently takes the host

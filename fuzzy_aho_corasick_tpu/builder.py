@@ -7,7 +7,7 @@ fast-path edit ceiling — then hands the result to
 :class:`fuzzy_aho_corasick_tpu.automaton.FuzzyAhoCorasick`.
 
 This phase is pure host logic (the reference's whole build is single-threaded
-host code too — SURVEY §3.1); the dense device arrays for the TPU kernels are
+host code too — SURVEY §3.1); the dense device arrays for the device kernels are
 derived lazily in :mod:`fuzzy_aho_corasick_tpu.ops.dense`.
 """
 

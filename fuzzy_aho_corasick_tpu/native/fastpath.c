@@ -1,6 +1,6 @@
 /* Native host fast paths for fuzzy_aho_corasick_tpu.
  *
- * The TPU kernels consume dense symbol-id streams; these routines produce
+ * The device kernels consume dense symbol-id streams; these routines produce
  * them (and run the bit-parallel prefilter recurrence) at memory-bandwidth
  * speed on the host, replacing NumPy fancy-indexing loops. Compiled on first
  * use by utils/native.py (gcc -O3 -shared), bound via ctypes; every entry

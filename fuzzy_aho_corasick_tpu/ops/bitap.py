@@ -1,7 +1,7 @@
 """Bitap (Wu-Manber shift-AND) scan kernels.
 
 The reference's scalar recurrence (src/prefilter.rs:410-435) runs one u64
-state per error level sequentially over the symbol stream. The TPU-native
+state per error level sequentially over the symbol stream. The device
 formulation exploits that a state bit depends on at most ``m + k`` trailing
 symbols: the stream is cut into independent chunks with an ``m + k`` warm-up
 halo, and every vector lane runs the recurrence over its own chunk — hundreds
@@ -13,7 +13,7 @@ Three implementations, fastest applicable wins:
 * :func:`bitap_windows` — scalar host loop, bit-exact port of the recurrence
   (used for tiny inputs and as the differential oracle).
 * :func:`bitap_windows_chunked` — NumPy-vectorized chunked form (host).
-* the packed Pallas TPU kernel in :mod:`fuzzy_aho_corasick_tpu.ops.packed_bitap`
+* the packed Pallas kernel in :mod:`fuzzy_aho_corasick_tpu.ops.packed_bitap`
   (device; same chunked scheme over VPU lanes).
 """
 
@@ -105,7 +105,7 @@ def bitap_windows_chunked(
 
     Cuts ``ids`` into ``chunk``-sized pieces, each prefixed by an ``m + k``
     halo; all chunks advance the recurrence in lockstep (one vectorized step
-    per in-chunk position). This is the same decomposition the TPU kernel
+    per in-chunk position). This is the same decomposition the device kernel
     uses across VPU lanes.
     """
     n = len(ids)

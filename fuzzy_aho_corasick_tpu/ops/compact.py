@@ -1,14 +1,16 @@
 """Compile-light device compaction primitives.
 
-XLA's ``argwhere``/scatter lowerings each cost ~16 s of TPU compile time and
-run a serial cumsum, which dominated both compile and runtime of the scan
-kernels (each kernel had several, and capacity retries recompiled them).
-These replacements use only matmuls, slices, and gathers:
+These were written so that compaction compiles fast and avoids a serial
+cumsum and a data-sized scatter (each scan pipeline has several, and
+capacity retries recompile them). They use only matmuls, slices, and
+gathers; whether XLA's own ``argwhere``/``cumsum`` do better on the GPU has
+not been measured:
 
 * :func:`cumsum_i32` — inclusive prefix sum as 128-wide blocked matmuls
-  against a triangular ones matrix (the classic MXU prefix-sum trick), with
-  f32 accumulation kept exact by construction (every 128-block partial sum
-  stays < 2^24 for flag-like inputs up to 2^28 elements).
+  against a triangular ones matrix, with f32 accumulation kept exact by
+  construction (every 128-block partial sum stays < 2^24 for flag-like
+  inputs up to 2^28 elements; ``Precision.HIGHEST`` keeps the product out of
+  TF32).
 * :func:`compact_indices` — stream compaction (``argwhere`` equivalent) via
   ``searchsorted`` over the prefix sum: a binary-search *gather* per output
   slot instead of a data-sized scatter.
@@ -55,10 +57,8 @@ def _bsearch_left(c: jax.Array, q: jax.Array) -> jax.Array:
     """Leftmost index where ``c[idx] >= q`` for sorted (non-decreasing) int32
     ``c``, as a 128-ary block descent instead of a binary search.
 
-    A binary search costs log2(n) *sequential* random gathers, and a gather
-    op on this target costs ~0.5-1 ms regardless of index count — 21-26
-    iterations made compaction a dominant pipeline stage. Here each level
-    gathers one aligned 128-wide row per query (row gathers are cheap) and
+    A binary search costs log2(n) *sequential* gather ops (21-26 at corpus
+    sizes). Here each level gathers one aligned 128-wide row per query and
     counts ``row < q`` lanes, so an n-element search costs ceil(log128(n))
     ~= 2-4 row-gather ops total.
 

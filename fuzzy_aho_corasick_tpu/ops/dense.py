@@ -1,7 +1,7 @@
 """Dense device tables compiled from the host automaton.
 
 The reference's pointer-rich ``Node`` graph (src/structs.rs:249-281) becomes
-flat arrays the TPU kernels gather from (SURVEY §7 "architectural
+flat arrays the device kernels gather from (SURVEY §7 "architectural
 translation"):
 
 * a **char-class** alphabet: every edge first-char gets its own class

@@ -1,6 +1,6 @@
-"""Device (TPU) search engine: dispatch layer over the JAX kernels.
+"""Device search engine: dispatch layer over the JAX kernels.
 
-Routes ``search_raw`` calls onto the TPU when the configuration and haystack
+Routes ``search_raw`` calls onto the device when the configuration and haystack
 are kernel-eligible; the host oracle handles everything else. Eligibility
 widens stage by stage (SURVEY §7 build order): exact scan, then the fuzzy
 frontier kernel, then prefiltered and sharded paths.
@@ -113,6 +113,9 @@ class DeviceEngine:
         return True
 
     def search_raw(self, haystack: str, threshold: float) -> List[FuzzyMatch]:
+        from .packed_bitap import interpret_mode
+
+        interpret_mode()  # raises DeviceUnavailable without a GPU
         if self._exact_ok:
             from .exact import exact_search_device
 

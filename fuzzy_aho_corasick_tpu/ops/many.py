@@ -9,7 +9,7 @@ no such cliff: its automaton serves thousands of patterns from the same
 monomorphized loop (reference src/search.rs:418-1119; the search_many_patterns
 bench, benches/benchmark.rs:45-76).
 
-This lane restores that capability TPU-side with compile time *independent of
+This lane restores that capability device-side with compile time *independent of
 pattern count*:
 
 * the PRIMARY layout is stratified-folded (:func:`_fold_assign`): patterns
@@ -30,10 +30,9 @@ pattern count*:
   computes chunk i+1 while chunk i's (sparse) result buffer crosses the
   host link, the same overlap scheme as the sliced headline pipeline.
 
-The scan kernel runs in its table-from-SMEM form (``consts=None`` in
-ops/packed_bitap._kernel_factory): ~2-3x slower per pass than the baked
-headline kernel, but scan cost is ~linear in total limb count either way —
-the folded layout's whole point is to shrink that count ~4-5x.
+Scan cost is ~linear in total limb count (ops/packed_bitap._scan_flags
+gathers 2W words per symbol), so the folded layout's whole point is to
+shrink that count ~4-5x.
 """
 
 from __future__ import annotations
@@ -51,11 +50,9 @@ import os as _os_ml
 
 #: Uniform u64 limb budget per PLAIN (unsuperimposed) chunk. At narrow W
 #: per-pass fixed work (flag transpose, compaction, replay) dominates, so
-#: wide chunks beat many narrow ones; at wide W the kernel's
-#: ~alphabet x 2W selects/position take over (measured on v5e: W=31..57
-#: traced passes all cost ~70-155 ms per 24 Mi symbols) — which is why the
-#: folded layout, not wider plain chunks, is the large-dictionary lane's
-#: primary form (see _fold_assign).
+#: wide chunks beat many narrow ones; at wide W the scan's per-symbol word
+#: work takes over — which is why the folded layout, not wider plain
+#: chunks, is the large-dictionary lane's primary form (see _fold_assign).
 MANY_LIMBS = int(_os_ml.environ.get("FAC_MANY_LIMBS", "32"))
 #: Pattern-id field in the packed emission rows is 12 bits.
 MANY_MAX_PATTERNS = 4095
@@ -63,11 +60,10 @@ MANY_MAX_PATTERNS = 4095
 #: Folded-layout tuning (see ``_fold_assign``): total false-fire budget per
 #: corpus position (split across length strata), the superposition cap per
 #: bit lane, and the per-chunk limb budget for folded chunks (wider than the
-#: plain MANY_LIMBS — the whole point is fewer, wider passes; the traced
-#: kernel's VMEM layout derivation charges the extra scratch per lane).
-#: 1/16 measured best on v5e (1k-word dict: W=31, one pass, 272 MB/s;
-#: tighter budgets widen W for no fire-rate benefit on real text, looser
-#: ones cross the runtime hit ceiling and fall back).
+#: plain MANY_LIMBS — the whole point is fewer, wider passes). At 1/16 a
+#: 1k-word dictionary folds to W=31 in one pass; tighter budgets widen W for
+#: no fire-rate benefit on real text, looser ones cross the runtime hit
+#: ceiling and fall back. Not yet re-tuned on the GPU.
 FOLD_EPS = float(_os_ml.environ.get("FAC_MANY_FOLD_EPS", str(1.0 / 16.0)))
 FOLD_MAX_F = 8.0
 FOLD_CHUNK_LIMBS = 64
@@ -91,7 +87,7 @@ def _fold_assign(pats, A: int, E: int):
     by the banded DP (exact), so folding trades verify work for scan work —
     false positives only, never false negatives: all scan masks are bitwise
     ORs of the per-pattern masks and the kernel recurrence is monotone in
-    every mask bit (shift/AND/OR only, packed_bitap._kernel_factory).
+    every mask bit (shift/AND/OR only, packed_bitap._step).
 
     Aligned lanes (same lo, same m) keep the mask algebra trivial: last
     bits coincide, so the Damerau ``notlast`` guard never clears an interior
@@ -290,10 +286,10 @@ class ManyPackSpec:
 
     def masks_for(self, ks: List[int], k: int):
         """Per-chunk (starts [2W], match [k+1, 2W], init [k+1, 2W], notlast
-        [2W] i32) at the given per-pattern budgets (reference fresh-start
+        [2W]) u32 at the given per-pattern budgets (reference fresh-start
         state src/prefilter.rs:414-418); ``k`` is the uniform row count.
-        ``notlast`` clears every field's LAST bit — the traced Damerau
-        recurrence's bc_next guard (packed_bitap._kernel_factory). Folded
+        ``notlast`` clears every field's LAST bit — the Damerau
+        recurrence's bc_next guard (packed_bitap._step). Folded
         layouts OR the masks of co-resident patterns; their last bits
         coincide (aligned lanes), so notlast never clears an interior bit."""
         from .packed_bitap import _last_bit_mask, _starts_mask
@@ -313,7 +309,7 @@ class ManyPackSpec:
             notlast = (
                 np.uint32(0xFFFFFFFF)
                 ^ _last_bit_mask(offsets, ms, 1, lambda i: 0, self.W)[0]
-            ).view(np.int32)
+            )
             out.append((starts, match, init, notlast))
         return out
 
@@ -338,8 +334,7 @@ def _expand_candidates_sparse(
     to that word (``cr_*`` [2W, R]: the (verify_field, shift, depth) rows
     whose match bit lives in that u32 column). The dense form walked
     KH x F x B cells and its prefix-sum compaction dominated the folded
-    single-pass pipeline (measured ~90 ms of a 135 ms dispatch at
-    KH=13k, F=1000); this walks KH2 x R x B with R ~ 30-60.
+    single-pass pipeline; this walks KH2 x R x B with R ~ 30-60.
 
     Same semantics as the dense form, including the hit-run dedup: band
     b > 0 candidates are suppressed when the same bit fired at pos - 1 —
@@ -430,37 +425,34 @@ def _expand_candidates_sparse(
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "A", "W", "NL", "TB", "grid", "chunkpf", "halo", "k",
+        "NL", "chunkpf", "halo", "k",
         "KH", "KH2", "CAND", "KG", "E", "Lmax", "C", "MO", "RDMN", "RDMX",
         "DEADEND",
     ),
 )
 def _many_pipeline_jit(
-    ids_pf, ids_pf_w32, word_tbl, pf_starts, pf_match, pf_init, pf_notlast,
+    ids_pf, scan_tabs,
     cr_field, cr_shift, cr_depth, cr_pc,
     depth_arr, node_arr, path_cls_flat, path_node_flat,
     out_list, pat_len, pat_weight,
     ids_dense, ids_dense_w32, limit, start_lo, start_hi,
     sim_flat, node_ceil, sb_edge_flat, out_count_arr,
     max_pen, p_sub, p_ins, p_del, p_swap, floor, thr,
-    A, W, NL, TB, grid, chunkpf, halo, k,
+    NL, chunkpf, halo, k,
     KH, KH2, CAND, KG, E, Lmax, C, MO, RDMN=1, RDMX=1,
     DEADEND=False,
 ):
     """One pattern-chunk's full search: scan -> expand -> banded DP -> emit.
     Result layout: TWO header rows ((hits, candidates, emissions) and
     (nonzero hit-word pairs, 0, 0)) followed by the 12-byte emission rows;
-    per-chunk tables are traced inputs.
-    ``pf_notlast`` (or None): traced Damerau recurrence — swap = 1 bitap
-    error, so swap-permitting budgets scan with k = edits."""
+    per-chunk tables are traced inputs (``scan_tabs``: see
+    packed_bitap.scan_tables; a notlast mask selects the Damerau recurrence
+    — swap = 1 bitap error, so swap-permitting budgets scan with k = edits).
+    ``k`` is the scan's error-row count (the containment pre-verify's slack)."""
     from .packed_bitap import packed_hits
     from .verify_dp import _banded_dp, _emit_rows
 
-    count_h, pos, words = packed_hits(
-        ids_pf, word_tbl, pf_starts, pf_match, pf_init,
-        A, W, NL, TB, grid, chunkpf, halo, k, KH,
-        ids_w32=ids_pf_w32, consts=None, notlast=pf_notlast,
-    )
+    count_h, pos, words = packed_hits(ids_pf, scan_tabs, NL, chunkpf, halo, KH)
     pair_count, cand_count, cand_field, cand_start = _expand_candidates_sparse(
         pos, words, start_lo, start_hi, limit, E, CAND, KH2,
         cr_field, cr_shift, cr_depth,
@@ -532,13 +524,13 @@ def _many_search_spec(
 ):
     from ..utils import device_corpus
     from .packed_bitap import (
-        RESIDENT_MAX, _cap_cache, _derive_layout_resident, _dev_consts,
-        _space_token,
+        _cap_cache, _dev_consts, _space_token, resident_max, scan_layout,
+        scan_tables,
     )
     from .verify_dp import _fine_cap, verify_fields_of
 
     thr = np.float32(threshold)
-    if n > RESIDENT_MAX:
+    if n > resident_max():
         return None
     vf = verify_fields_of(engine)
     if vf is None:
@@ -550,8 +542,8 @@ def _many_search_spec(
     E = engine.max_edits_fast
 
     # Damerau-aware budgets (swap = 1 bitap error) when they shrink k — the
-    # traced kernel's pending-transposition rows make this sound (same model
-    # as the baked headline lane, ops/verify_dp.fuzzy_search_dp).
+    # scan's pending-transposition rows make this sound (same model as the
+    # headline lane, ops/verify_dp.fuzzy_search_dp).
     import os as _os_k
 
     # Per-pattern budgets are threshold-pure; the 2x1000 k_for python loop
@@ -585,7 +577,7 @@ def _many_search_spec(
         return []
 
     tok = _space_token(engine)
-    ids_pf, ids_pf_w32, n_pf = device_corpus.resident_words(
+    ids_pf, n_pf = device_corpus.resident(
         haystack,
         ("pk-fuzzy", tok),
         lambda h: np.ascontiguousarray(spec.filt.transcode(h)[0], dtype=np.uint8),
@@ -597,13 +589,9 @@ def _many_search_spec(
     )
     assert n_pf == n_d == n
     nb = ids_pf.size
-    NL, TB, chunkpf, grid = _derive_layout_resident(
-        nb, halo, spec.W, k=k, tables_in_vmem=True, damerau=dam
-    )
+    NL, chunkpf = scan_layout(nb, halo)
 
-    # Per-chunk device tables, shipped once per (engine, threshold). The
-    # scan masks are small i32 arrays read as SMEM scalars by the traced
-    # kernel (no per-lane broadcast, so they are NL-independent).
+    # Per-chunk device tables, shipped once per (engine, threshold).
     def _ship():
         masks = spec.masks_for(ks, k)
         out = []
@@ -612,11 +600,8 @@ def _many_search_spec(
             zip(spec.chunks, masks)
         ):
             out.append((
-                jax.device_put(word_tbl),
-                jax.device_put(np.ascontiguousarray(starts).view(np.int32)),
-                jax.device_put(np.ascontiguousarray(match).view(np.int32)),
-                jax.device_put(np.ascontiguousarray(init).view(np.int32)),
-                jax.device_put(notlast) if dam else None,
+                scan_tables(word_tbl, starts, match, init,
+                            notlast=notlast if dam else None),
                 jax.device_put(cr_field),
                 jax.device_put(cr_shift),
                 jax.device_put(cr_depth),
@@ -672,9 +657,9 @@ def _many_search_spec(
     _timing = _os.environ.get("FAC_TIME") == "1"
 
     def _launch(ci, KH_, KH2_, CAND_, KG_):
-        (word_tbl, sb, mb, ib, nlb, cr_f, cr_s, cr_d, cr_p) = chunk_tabs[ci]
+        (scan_tabs, cr_f, cr_s, cr_d, cr_p) = chunk_tabs[ci]
         return _many_pipeline_jit(
-            ids_pf, ids_pf_w32, word_tbl, sb, mb, ib, nlb,
+            ids_pf, scan_tabs,
             cr_f, cr_s, cr_d, cr_p,
             dep_d, node_d, pcls_d, pnode_d,
             olist_d, plen_d, pw_d,
@@ -682,8 +667,7 @@ def _many_search_spec(
             sim_d, node_ceil, sbe_d, ocnt_d,
             max_pen, pens.substitution, pens.insertion, pens.deletion,
             pens.swap, engine.min_symbol_similarity, thr,
-            A=spec.A, W=spec.W, NL=NL, TB=TB, grid=grid, chunkpf=chunkpf,
-            halo=halo, k=k,
+            NL=NL, chunkpf=chunkpf, halo=halo, k=k,
             KH=KH_, KH2=KH2_, CAND=CAND_, KG=KG_, E=E, Lmax=vf.max_depth,
             C=dense.num_classes, MO=dense.max_out,
             RDMN=spec.rd_min, RDMX=spec.rd_max,
@@ -691,11 +675,9 @@ def _many_search_spec(
         )
 
     _t0 = _time.perf_counter()
-    from .verify_dp import _retry_transient
-
     pend = []
     for ci in range(len(chunk_tabs)):
-        o = _retry_transient(lambda: _launch(ci, KH, KH2, CAND, KG))
+        o = _launch(ci, KH, KH2, CAND, KG)
         try:
             o.copy_to_host_async()
         except (AttributeError, RuntimeError):
@@ -735,11 +717,7 @@ def _many_search_spec(
                 grew = True
             if not grew:
                 break
-            buf = jax.device_get(
-                _retry_transient(
-                    lambda: _launch(ci, KH_u, KH2_u, CAND_u, KG_u)
-                )
-            )
+            buf = jax.device_get(_launch(ci, KH_u, KH2_u, CAND_u, KG_u))
         mx_h, mx_c, mx_g = max(mx_h, count_h), max(mx_c, cand_count), max(mx_g, total)
         mx_2 = max(mx_2, pair_count)
         sum_h += count_h

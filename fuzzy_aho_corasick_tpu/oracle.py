@@ -1,6 +1,6 @@
 """Conformance oracle: exact re-implementation of the reference search semantics.
 
-This is the pure-host engine that defines the *behavior* the TPU kernels must
+This is the pure-host engine that defines the *behavior* the device kernels must
 reproduce (SURVEY §7 build order, step 1). It mirrors the reference's
 per-start-position BFS (reference: src/search.rs:418-1119) including:
 

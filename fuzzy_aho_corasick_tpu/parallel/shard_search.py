@@ -1,10 +1,10 @@
 """Data-parallel corpus sharding across a device mesh with halo overlap.
 
-TPU-native equivalent of the reference's window/thread parallelism
+Device equivalent of the reference's window/thread parallelism
 (reference src/stream.rs:378-429; SURVEY §2 parallelism inventory): the
 haystack's symbol stream is sharded over a 1-D ``data`` mesh axis, each shard
 fetches a halo of ``max_match_graphemes()`` symbols from its right neighbor
-over ICI (``ppermute`` — the boundary-most shard receives zeros, i.e. dead
+(``ppermute`` — the boundary-most shard receives zeros, i.e. dead
 symbols), and every shard owns exactly the matches starting in its own region
 (the reference's ``start < commit`` ownership rule, src/stream.rs:262-297),
 so emission is exactly-once with no dedup collective.
@@ -49,7 +49,7 @@ def make_sharded_exact_step(dense, mesh: Mesh, shard_len: int, halo: int, k_cap:
     C = dense.num_classes
 
     def shard_body(alive, ids_local):
-        # Fetch the halo from the right neighbor over ICI; the last shard
+        # Fetch the halo from the right neighbor; the last shard
         # receives zeros (class 0 = dead), matching the stream-EOF window.
         head = jax.lax.ppermute(
             ids_local[:halo],
@@ -180,27 +180,6 @@ def sharded_exact_search(engine, haystack: str, threshold: float, mesh: Optional
 # Sharded fuzzy search: packed shift-AND -> candidates -> banded DP per shard
 # ---------------------------------------------------------------------------
 
-def _shard_fuzzy_layout(shard_len: int, halo: int, margin: int, W: int):
-    """(NL, TB, chunk, grid, EXT) for the per-shard extended stream
-    ``[left halo | local | right margin | zero pad]`` of padded length
-    NL * chunk (the packed-scan lane decomposition; zero pad = dead symbols)."""
-    from ..ops.packed_bitap import NL_MAX, VMEM_BLOCK_BYTES
-
-    ext_raw = halo + shard_len + margin
-    nl = NL_MAX
-    while nl > 128 and -(-ext_raw // nl) < max(halo, 8):
-        nl //= 2
-    chunk = max(-(-ext_raw // nl), halo, 8)
-    chunk = 1 << (chunk - 1).bit_length()
-    # Same flag-only block-IO budget as packed_bitap._derive_layout (12
-    # bytes/row-lane): the kernel's expansion scratch is 1*TB*NL u32 since
-    # the per-row word expansion landed, so the old nl*8*W formula would
-    # under-size TB (more grid steps) on the shard path.
-    tb = max(8, (VMEM_BLOCK_BYTES // (nl * 12)) // 8 * 8)
-    grid = -(-(halo + chunk) // tb)
-    return nl, tb, chunk, grid, nl * chunk
-
-
 def make_sharded_fuzzy_step(
     engine, mesh: Mesh, shard_len: int, n: int, threshold,
     KH: int, CAND: int, KG: int,
@@ -212,7 +191,7 @@ def make_sharded_fuzzy_step(
     (ops/verify_dp._dp_pipeline_jit) re-based onto shard-extended streams:
     each shard receives its left halo (scan warm-up, ``max_pattern + k``
     symbols) from the left neighbor and a right margin (span lookahead) from
-    the right neighbor over ICI (``ppermute``); ownership is the reference's
+    the right neighbor (``ppermute``); ownership is the reference's
     ``start < commit`` rule (src/stream.rs:262-297) — a shard keeps exactly
     the candidates whose start lies in its own region, so emission is
     exactly-once with no dedup collective. Per-shard match counts reduce
@@ -227,7 +206,9 @@ def make_sharded_fuzzy_step(
     """
     import jax.numpy as jnp
 
-    from ..ops.packed_bitap import packed_fuzzy_of, _bcast, packed_hits
+    from ..ops.packed_bitap import (
+        packed_fuzzy_of, packed_hits, scan_layout, scan_tables,
+    )
     from ..ops.verify_dp import (
         _banded_dp,
         _banded_dp_typed,
@@ -252,8 +233,8 @@ def make_sharded_fuzzy_step(
         dam = False
     else:
         # Damerau-aware budgets (swap = 1 bitap error) when they shrink k —
-        # the traced kernel's pending-transposition rows make this sound
-        # (same selection as ops/verify_dp.fuzzy_search_dp).
+        # the scan's pending-transposition rows make this sound (same
+        # selection as ops/verify_dp.fuzzy_search_dp).
         import os as _os_k
 
         ks_p = [pk.filt.k_for(bp, thr) for bp in pk.filt.patterns]
@@ -270,7 +251,10 @@ def make_sharded_fuzzy_step(
     margin = max(halo, Lmax + 2 * E + 2)
     n_dev = mesh.devices.size
 
-    NL, TB, chunk, grid, EXT = _shard_fuzzy_layout(shard_len, halo, margin, pk.W)
+    # Per-shard extended stream [left halo | local | right margin | zero
+    # pad] of padded length NL * chunk (zero pad = dead symbols).
+    NL, chunk = scan_layout(halo + shard_len + margin, halo)
+    EXT = NL * chunk
 
     # Static candidate-expansion tables (python ints — no device gathers).
     bits = tuple(
@@ -283,14 +267,11 @@ def make_sharded_fuzzy_step(
     ceil = engine.prune_len_arr - np.float32(engine.prune_len_over_weight_arr * thr)
     max_pen = np.float32(ceil[0])
 
-    # Replicated device constants (the automaton is the "weights"). The
-    # traced scan kernel reads the masks as SMEM scalars, so they ship as
-    # small i32 arrays (no per-lane broadcast).
-    tbl = jnp.asarray(pk.word_tbl)
-    sb = jnp.asarray(np.ascontiguousarray(pk.starts).view(np.int32))
-    mb = jnp.asarray(np.ascontiguousarray(match).view(np.int32))
-    ib = jnp.asarray(np.ascontiguousarray(init).view(np.int32))
-    nlb = jnp.asarray(pk.notlast().view(np.int32)) if dam else None
+    # Replicated device constants (the automaton is the "weights").
+    scan_tabs = scan_tables(
+        pk.word_tbl, pk.starts, match, init,
+        notlast=pk.notlast() if dam else None,
+    )
     dep_d = jnp.asarray(vf.depth)
     node_d = jnp.asarray(vf.node)
     pcls_d = jnp.asarray(vf.path_cls.reshape(-1))
@@ -330,11 +311,7 @@ def make_sharded_fuzzy_step(
         limit_ext = jnp.clip(jnp.int32(n) - base + halo, 0, EXT)
         lo_ext = jnp.maximum(halo - base, 0)
 
-        count_h, pos, words = packed_hits(
-            ids_pf_ext, tbl, sb, mb, ib,
-            pk.A, pk.W, NL, TB, grid, chunk, halo, k, KH,
-            notlast=nlb,
-        )
+        count_h, pos, words = packed_hits(ids_pf_ext, scan_tabs, NL, chunk, halo, KH)
         start_lo = jnp.int32(halo)
         start_hi = jnp.minimum(jnp.int32(halo + shard_len), limit_ext)
         cand_count, cand_field, cand_start = _expand_candidates(

@@ -8,7 +8,7 @@ the bit model (mappings, patterns > 63 graphemes, free edits, > 255 distinct
 symbols, huge ``k``) transparently fall back to the full search.
 
 The scan itself lives in :mod:`fuzzy_aho_corasick_tpu.ops.bitap` — a
-TPU-chunked shift-AND kernel (each vector lane runs the recurrence over an
+chunked shift-AND kernel (each vector lane runs the recurrence over an
 independent chunk with an ``m + k`` halo) with a NumPy host fallback.
 """
 
@@ -211,13 +211,17 @@ class BitapFilter:
 
         On kernel-eligible configurations the fast lane IS the device path:
         the packed multi-pattern shift-AND scan is fused into the device
-        pipelines (ops/packed_bitap feeding ops/verify_dp — the TPU-native
+        pipelines (ops/packed_bitap feeding ops/verify_dp — the device
         form of the reference's scan-then-re-search), so ``Prefiltered``
         routes straight there and only the host window re-search below
         serves the residual configs (oracle-only engines, tiny inputs).
         """
         thr = np.float32(threshold)
-        if engine.backend != "oracle" and len(haystack) >= engine.AUTO_DEVICE_MIN:
+        if engine.backend != "oracle" and (
+            engine._device_eligible(haystack)
+            or (engine.backend == "device"
+                and len(haystack) >= engine.AUTO_DEVICE_MIN)
+        ):
             dev = engine._device_engine()
             if dev.supports(haystack):
                 return dev.search_raw(haystack, threshold)

@@ -1,6 +1,6 @@
 """Public data types: similarity tables, limits, penalties, patterns, matches.
 
-TPU-native re-design of the reference's data model (reference: src/structs.rs).
+Device-oriented re-design of the reference's data model (reference: src/structs.rs).
 The reference packs a pointer-rich ``Node`` graph; here the automaton is
 compiled to dense NumPy/JAX arrays (see :mod:`fuzzy_aho_corasick_tpu.builder`)
 and these classes carry only configuration and results.

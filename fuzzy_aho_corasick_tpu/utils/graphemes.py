@@ -1,6 +1,6 @@
 """Grapheme segmentation, case folding, and transcoding (host side).
 
-TPU-native counterpart of the reference's grapheme layer
+Counterpart of the reference's grapheme layer
 (reference: src/grapheme.rs, src/search.rs:398-416, src/prefilter.rs:251-281).
 The device only ever sees dense integer symbol streams produced here; all
 Unicode handling stays on the host.
@@ -12,70 +12,94 @@ Two paths, mirroring the reference's monomorphized storage:
   letters. Transcoding is a single vectorized table lookup over the byte
   array — no segmentation, no hashing.
 * **Unicode path** (reference src/search.rs:398-416): extended grapheme
-  clusters via the ``regex`` module's ``\\X`` (UAX #29 — the same definition
-  as the reference's ``unicode-segmentation`` crate), lowercased per grapheme
-  when case-insensitive.
+  clusters by the UAX #29 rules (the same definition as the reference's
+  ``unicode-segmentation`` crate), evaluated vectorized over the code
+  points with the property tables of ``_grapheme_tables`` (generated by
+  tools/gen_grapheme_tables.py); lowercased per grapheme when
+  case-insensitive.
 """
 
 from __future__ import annotations
 
 import numpy as np
-import regex
 
-_GRAPHEME_RE = regex.compile(r"\X")
+from . import _grapheme_tables as _gt
 
 # Vectorized ASCII lower-case table: byte -> folded byte.
 _ASCII_LOWER = np.arange(256, dtype=np.uint8)
 _ASCII_LOWER[ord("A") : ord("Z") + 1] += 32
 
+(_OTHER, _CR, _LF, _CONTROL, _EXTEND, _ZWJ, _RI, _PREPEND, _SPACING, _L, _V,
+ _T, _LV, _LVT) = range(len(_gt.GCB))
+_INCB_CONSONANT, _INCB_EXTEND, _INCB_LINKER = 1, 2, 3
 
-#: Per-256-code-point blocks of the "grapheme singleton" property: True when
-#: a code point always forms its own extended grapheme cluster next to any
-#: other singleton code point. Derived empirically from the same UAX #29
-#: engine used by the slow path (regex '\X'), so the two paths can never
-#: disagree: cp is a singleton iff it breaks against itself, after 'a' and
-#: before 'a' — which rules out Extend/ZWJ/SpacingMark (no break after a
-#: base), Prepend (no break before a base), hangul jamo and regional
-#: indicators (no break against themselves). CR is excluded explicitly
-#: (CR+LF is one cluster but both probe as singletons).
-_SINGLETON_BLOCKS: dict[int, "np.ndarray"] = {}
+#: Dense property code per code point (uint8 [0x110000]), built on first use.
+_PROPS = None
 
 
-def _singleton_block(block: int) -> "np.ndarray":
-    tbl = _SINGLETON_BLOCKS.get(block)
-    if tbl is None:
-        tbl = np.zeros(256, dtype=bool)
-        base = block << 8
-        findall = _GRAPHEME_RE.findall
-        for i in range(256):
-            cp = base + i
-            if cp == 0x0D or cp > 0x10FFFF or 0xD800 <= cp <= 0xDFFF:
-                continue
-            ch = chr(cp)
-            tbl[i] = (
-                len(findall(ch + ch)) == 2
-                and len(findall("a" + ch)) == 2
-                and len(findall(ch + "a")) == 2
-            )
-        _SINGLETON_BLOCKS[block] = tbl
-    return tbl
+def _props() -> np.ndarray:
+    global _PROPS
+    if _PROPS is None:
+        starts = np.asarray(_gt.STARTS + (0x110000,), dtype=np.int64)
+        _PROPS = np.repeat(
+            np.asarray(_gt.CODES, dtype=np.uint8), np.diff(starts)
+        )
+    return _PROPS
 
 
-def _all_singletons(cps: "np.ndarray") -> bool:
-    """True when every code point is a grapheme singleton (see above) — the
-    whole string then segments as one cluster per code point and the
-    vectorized view path applies (Cyrillic, Greek, CJK, kana ... — anything
-    without combining marks, joiners, jamo or emoji sequences)."""
-    mx = int(cps.max(initial=0))
-    # One stitched table over [0, mx] + a single gather: the per-block probe
-    # cost is paid once per block ever; bincount finds the present blocks in
-    # one pass so absent blocks stay unprobed.
-    n_blocks = (mx >> 8) + 1
-    present = np.flatnonzero(np.bincount(cps >> 8, minlength=n_blocks))
-    full = np.zeros(n_blocks << 8, dtype=bool)
-    for block in present:
-        full[block << 8 : (block + 1) << 8] = _singleton_block(int(block))
-    return bool(full[cps].all())
+def _code_points(text: str) -> np.ndarray:
+    return np.frombuffer(
+        text.encode("utf-32-le", "surrogatepass"), dtype=np.uint32
+    )
+
+
+def _last_index_where(mask: np.ndarray) -> np.ndarray:
+    """out[i] = the largest j <= i with mask[j], or -1."""
+    idx = np.where(mask, np.arange(len(mask)), -1)
+    return np.maximum.accumulate(idx) if len(idx) else idx
+
+
+def _breaks(cps: np.ndarray) -> np.ndarray:
+    """bool [n]: a cluster boundary before code point i (UAX #29 GB1-GB999;
+    the boundary before i = 0 is always set)."""
+    n = len(cps)
+    out = np.ones(n, dtype=bool)
+    if n < 2:
+        return out
+    code = _props()[cps]
+    gcb = code & 15
+    ep = (code & _gt.EP_BIT) != 0
+    incb = code >> _gt.INCB_SHIFT
+    p, c = gcb[:-1], gcb[1:]
+    ctl = lambda g: (g == _CONTROL) | (g == _CR) | (g == _LF)
+    keep = (
+        ((p == _L) & ((c == _L) | (c == _V) | (c == _LV) | (c == _LVT)))  # GB6
+        | (((p == _LV) | (p == _V)) & ((c == _V) | (c == _T)))           # GB7
+        | (((p == _LVT) | (p == _T)) & (c == _T))                        # GB8
+        | (c == _EXTEND) | (c == _ZWJ)                                   # GB9
+        | (c == _SPACING)                                                # GB9a
+        | (p == _PREPEND)                                                # GB9b
+    )
+    # GB9c: InCB=Consonant [Extend|Linker]* Linker [Extend|Linker]* x Consonant
+    ext_link = (incb == _INCB_EXTEND) | (incb == _INCB_LINKER)
+    head = _last_index_where(~ext_link)[:-1]       # run start before i, -1
+    linkers = np.cumsum(incb == _INCB_LINKER)
+    has_linker = linkers[:-1] - np.where(head >= 0, linkers[np.maximum(head, 0)], 0) > 0
+    keep |= (
+        (incb[1:] == _INCB_CONSONANT) & has_linker & (head >= 0)
+        & (incb[np.maximum(head, 0)] == _INCB_CONSONANT)
+    )
+    # GB11: ExtPict Extend* ZWJ x ExtPict
+    pict = _last_index_where(gcb != _EXTEND)       # before the ZWJ: i - 2
+    q = np.concatenate([[-1], pict[:-2]])
+    keep |= (p == _ZWJ) & ep[1:] & (q >= 0) & ep[np.maximum(q, 0)]
+    # GB12/13: break between RIs only after an even-length run of them.
+    run = np.arange(n) - _last_index_where(gcb != _RI)
+    keep |= (p == _RI) & (c == _RI) & (run[:-1] % 2 == 1)
+    brk = np.where(ctl(p) | ctl(c), True, ~keep)                 # GB4, GB5
+    brk &= ~((p == _CR) & (c == _LF))                            # GB3
+    out[1:] = brk
+    return out
 
 
 def graphemes(text: str) -> list[str]:
@@ -83,7 +107,11 @@ def graphemes(text: str) -> list[str]:
 
     Matches the reference's ``UnicodeSegmentation::graphemes(s, true)``.
     """
-    return _GRAPHEME_RE.findall(text)
+    if not text:
+        return []
+    b = np.flatnonzero(_breaks(_code_points(text))).tolist()
+    b.append(len(text))
+    return [text[i:j] for i, j in zip(b, b[1:])]
 
 
 def grapheme_len(text: str) -> int:
@@ -94,7 +122,24 @@ def grapheme_len(text: str) -> int:
         # when no '\r' is present.
         if "\r" not in text:
             return len(text)
-    return len(_GRAPHEME_RE.findall(text))
+    if not text:
+        return 0
+    return int(_breaks(_code_points(text)).sum())
+
+
+#: Grapheme_Cluster_Break values of "singleton" code points: one always forms
+#: its own extended grapheme cluster next to any other singleton (no GB6-GB13
+#: rule joins two of them; CR is excluded because CR+LF is one cluster).
+_SINGLETON_GCB = np.ones(16, dtype=bool)
+_SINGLETON_GCB[[_CR, _EXTEND, _ZWJ, _RI, _PREPEND, _SPACING, _L, _V, _T]] = False
+
+
+def _all_singletons(cps: "np.ndarray") -> bool:
+    """True when every code point is a grapheme singleton (see above) — the
+    whole string then segments as one cluster per code point and the
+    vectorized view path applies (Cyrillic, Greek, CJK, kana ... — anything
+    without combining marks, joiners, jamo or emoji sequences)."""
+    return bool(_SINGLETON_GCB[_props()[cps] & 15].all())
 
 
 def fold_graphemes(text: str, case_insensitive: bool) -> list[str]:
@@ -223,11 +268,11 @@ class HaystackView:
         # trivially, and so do Cyrillic, Greek, CJK, kana: any script
         # without combining marks, joiners, jamo or emoji sequences in the
         # actual text), every code point IS one extended grapheme cluster —
-        # segmentation becomes vectorized arithmetic instead of a regex pass
-        # (~40x on 24 MiB corpora). Case folding must also be
+        # segmentation becomes vectorized arithmetic instead of a per-cluster
+        # pass. Case folding must also be
         # length-preserving (e.g. U+0130 lowers to two code points — falls
         # back to the general path).
-        cps = np.frombuffer(haystack.encode("utf-32-le"), dtype=np.uint32)
+        cps = _code_points(haystack)
         mx = int(cps.max(initial=0))
         if (
             (mx < 0x300 and "\r" not in haystack)
@@ -251,7 +296,7 @@ class HaystackView:
         texts: list[str] = []
         offsets: list[int] = []
         pos = 0
-        for g in _GRAPHEME_RE.findall(haystack):
+        for g in graphemes(haystack):
             offsets.append(pos)
             pos += len(g.encode("utf-8"))
             if case_insensitive and not (g.isascii() and not any("A" <= c <= "Z" for c in g)):

@@ -1,4 +1,4 @@
-"""Device-path conformance: the TPU kernels must reproduce the host oracle
+"""Device-path conformance: the device kernels must reproduce the host oracle
 exactly (SURVEY §7 differential-gating; pattern of reference
 src/prefilter.rs:437-529's differential fuzz, applied device-vs-oracle)."""
 

@@ -2,7 +2,7 @@
 
 The reference serves thousands of patterns from one monomorphized loop
 (src/search.rs:418-1119; benches/benchmark.rs:45-76 search_many_patterns).
-The TPU analog chunks the dictionary across reusable uniform-shape kernels;
+The device analog chunks the dictionary across reusable uniform-shape kernels;
 these tests check chunking engages (single-kernel packing declines) and the
 merged result is oracle-identical.
 """

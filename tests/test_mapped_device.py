@@ -1,7 +1,7 @@
 """Device lane for multi-char mappings: differential vs the oracle.
 
 The reference serves mappings inside its one hot loop
-(src/search.rs:883-923, precompute src/builder.rs:383-442); the TPU build
+(src/search.rs:883-923, precompute src/builder.rs:383-442); the device build
 serves them as static arrivals in the banded DP (ops/verify_dp.MappedSpec).
 These tests force ``backend = "device"`` and assert byte-identical match
 tuples against the pure-host oracle — the same differential pattern as the

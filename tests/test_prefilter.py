@@ -1,6 +1,6 @@
 """Prefilter conformance: differential fuzz vs the full engine
 (reference src/prefilter.rs:437-562), plus the chunked-vs-scalar bitap
-equivalence the TPU kernel relies on."""
+equivalence the device kernel relies on."""
 
 import numpy as np
 
@@ -93,7 +93,7 @@ def test_falls_back_when_not_reducible():
 
 
 def test_chunked_bitap_equals_scalar():
-    """The halo decomposition the TPU kernel uses must reproduce the scalar
+    """The halo decomposition the device kernel uses must reproduce the scalar
     recurrence exactly: same candidate-window set for random streams."""
     rng = Rng(0xC0FFEE)
     for trial in range(40):
